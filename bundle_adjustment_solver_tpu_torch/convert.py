@@ -1,9 +1,9 @@
-"""Carry a point-major problem built by the JAX package into this package.
+"""Carry problems built by the JAX package into this package.
 
 The JAX package's `PointMajorProblem`, `PMShape`, `CameraRig` and poses,
-handed over as numpy arrays and plain dicts (this package imports nothing
-of the JAX package), become this package's tensors, so both packages can
-run on one identical layout.
+and its batched pose-only problems, handed over as numpy arrays and plain
+dicts (this package imports nothing of the JAX package), become this
+package's tensors, so both packages can run on identical inputs.
 """
 
 from __future__ import annotations
@@ -19,6 +19,29 @@ from .models.layout import PMShape, PointMajorProblem
 from .ops.cuda.full_ba_pm import pose_table
 
 _INT_FIELDS = ("slot_pose", "slot_opt", "point_ref", "gbase", "sbase")
+
+
+def batched_problem_tensors(
+    arrays: Mapping[str, np.ndarray | None],
+    device: torch.device | str | None,
+) -> dict[str, torch.Tensor | None]:
+    """A batched pose-only problem of the JAX package (or of this package's
+    generators, which give the same arrays), handed over as numpy arrays by
+    field name, as this package's tensors on `device`: float arrays become
+    float32 (rounded as the JAX package rounds them), bool arrays stay bool,
+    and absent fields (None, e.g. the right pixels of a mono problem) stay
+    None. Feeding `tensor.cpu().numpy()` of the result to the JAX package
+    gives both packages bit-identical inputs."""
+    device = resolve_device(device)
+    out = {}
+    for name, a in arrays.items():
+        if a is None:
+            out[name] = None
+            continue
+        a = np.asarray(a)
+        dtype = torch.bool if a.dtype == np.bool_ else torch.float32
+        out[name] = torch.as_tensor(a, dtype=dtype, device=device)
+    return out
 
 
 def from_jax_numpy(

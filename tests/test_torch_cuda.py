@@ -5,29 +5,37 @@ nothing of JAX, so it runs where only PyTorch is installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
-Two layouts: a narrow pose window (staged in shared memory) and one wider
-than 256 rows (read from device memory, panels summed in device memory).
+Point-major kernels: two layouts, a narrow pose window (staged in shared
+memory) and one wider than 256 rows (read from device memory, panels summed
+in device memory). Batched pose-only kernels: 300 frames of 300 points (more
+points than a block has threads), and each batched solve on the card
+against the same solve on the CPU.
 Outputs are held element by element: a relative tolerance plus a small
 fraction of the output row's largest magnitude, for FMA contraction,
 another summation order, and atomics that sum panels in a run-dependent
-order; the CG step's outputs cancel and are held to their float32 rounding
-scale.
+order; the CG step's outputs and the batched stats cancel and are held to
+their float32 rounding scale.
 """
 
 import numpy as np
 import pytest
 import torch
 
+import bundle_adjustment_solver_tpu_torch as port
 from bundle_adjustment_solver_tpu_torch import pm_problem_from_arrays, solve_pm
+from bundle_adjustment_solver_tpu_torch.convert import batched_problem_tensors
 from bundle_adjustment_solver_tpu_torch.ops.cuda import cg_step as CG
 from bundle_adjustment_solver_tpu_torch.ops.cuda import full_ba_pm as K
+from bundle_adjustment_solver_tpu_torch.ops.cuda import pose_only_batched as BK
 from bundle_adjustment_solver_tpu_torch.ops.sym6 import inverse_tri6
 from bundle_adjustment_solver_tpu_torch.options import (
     ConvergenceHandle,
     IterationHandle,
     Options,
+    OutlierHandle,
     SolverType,
 )
+from bundle_adjustment_solver_tpu_torch.solvers import pose_only
 from bundle_adjustment_solver_tpu_torch.utils.synthetic import corridor_ba_problem
 
 pytestmark = pytest.mark.cuda
@@ -158,3 +166,112 @@ def test_solve_on_the_card_matches_the_cpu(cuda):
                                atol=2e-5 * first)
     np.testing.assert_allclose(g_state.points.cpu().numpy(),
                                c_state.points.numpy(), rtol=0, atol=2e-4)
+
+
+# Batched pose-only stats, as chip_smoke.py holds them: rtol of each entry's
+# rounding scale (a bound on the sum of its terms' magnitudes).
+BGN_RTOL = 2e-4
+BGN_MODES = ["mono", "stereo", "planar_mono", "planar_stereo"]
+
+
+def _batched(mode, device, B, P, seed, noise=0.0):
+    import dataclasses
+
+    if mode.startswith("planar"):
+        prob = port.batched_planar_pose_only_problem(
+            B, P, seed=seed, stereo=mode == "planar_stereo",
+            pixel_noise=noise)
+    else:
+        prob = port.batched_stereo_pose_only_problem(B, P, seed=seed,
+                                                     pixel_noise=noise)
+    arrays = dataclasses.asdict(prob)
+    arrays["valid"] = np.random.default_rng(seed).uniform(size=(B, P)) > 0.05
+    return prob, batched_problem_tensors(arrays, device)
+
+
+def _bgn_args(mode, t):
+    """The stats kernel's arguments, laid out as the solver lays them out,
+    at a pose off the truth."""
+    frames = pose_only.batched_frames(mode, t)
+    B, dev = t["points"].shape[0], t["points"].device
+    gen = torch.Generator().manual_seed(3)
+    if mode.startswith("planar"):
+        state = t["theta_true"] + 0.01 * torch.randn(
+            (B, 3), generator=gen).to(dev)
+    else:
+        T = torch.linalg.inv(t["poses_true"])
+        T[:, :3, 3] += 0.02 * torch.randn((B, 3), generator=gen).to(dev)
+        state = BK.pose_rows(T[:, :3, :3].contiguous(), T[:, :3, 3])
+    return pose_only.stats_args(frames, state, 1.0)
+
+
+_BGN = {
+    "mono": (BK.batched_mono_gn_stats, BK.batched_mono_gn_stats_plain),
+    "stereo": (BK.batched_stereo_gn_stats, BK.batched_stereo_gn_stats_plain),
+    "planar_mono": (BK.batched_planar_mono_gn_stats,
+                    BK.batched_planar_mono_gn_stats_plain),
+    "planar_stereo": (BK.batched_planar_stereo_gn_stats,
+                      BK.batched_planar_stereo_gn_stats_plain),
+}
+
+
+@pytest.mark.parametrize("mode", BGN_MODES)
+def test_batched_stats_kernel_matches_plain(cuda, mode):
+    _, t = _batched(mode, cuda, B=300, P=300, seed=9, noise=1.0)
+    args = _bgn_args(mode, t)
+    kernel, plain = _BGN[mode]
+    launches = kernel.launches
+    got = kernel(*args)
+    assert kernel.launches == launches + 1
+    want = plain(*args)
+    torch.cuda.synchronize()
+    scale = BK.gn_stats_rounding_scale(want)
+    assert _ratio(got, want, BGN_RTOL, scale=scale) <= 1
+    # The check sees a doubled cost and a zeroed J^T W J (0, 0).
+    bad = got.clone()
+    bad[:, -1] *= 2
+    assert _ratio(bad, want, BGN_RTOL, scale=scale) > 1
+    bad = got.clone()
+    bad[:, 0] = 0
+    assert _ratio(bad, want, BGN_RTOL, scale=scale) > 1
+
+
+@pytest.mark.parametrize("mode", BGN_MODES)
+def test_batched_solve_on_the_card_matches_the_cpu(cuda, mode):
+    # Noise-free: with pixel noise the last steps hover at the 1e-7
+    # thresholds, so either side's stopping iteration is chaotic.
+    _, t_gpu = _batched(mode, cuda, B=64, P=128, seed=4)
+    _, t_cpu = _batched(mode, "cpu", B=64, P=128, seed=4)
+    solve = {"mono": port.solve_monocular_6dof_batched,
+             "stereo": port.solve_stereo_6dof_batched,
+             "planar_mono": port.solve_monocular_planar3dof_batched,
+             "planar_stereo": port.solve_stereo_planar3dof_batched}[mode]
+
+    def args(t):
+        if mode == "mono":
+            return (t["points"], t["pixels_left"], t["valid"],
+                    t["intrinsics"], t["poses_initial"])
+        if mode == "stereo":
+            return (t["points"], t["pixels_left"], t["pixels_right"],
+                    t["valid"], t["intrinsics"], t["intrinsics"],
+                    t["pose_left_to_right"], t["poses_initial"])
+        chain = (t["poses_world_to_last"], t["poses_world_to_current_init"])
+        if mode == "planar_mono":
+            return (t["points"], t["pixels_left"], t["valid"],
+                    t["intrinsics"], t["base_to_camera"]) + chain
+        return (t["points"], t["pixels_left"], t["pixels_right"], t["valid"],
+                t["intrinsics"], t["intrinsics"], t["base_to_camera"],
+                t["pose_left_to_right"]) + chain
+
+    opts = Options(convergence_handle=ConvergenceHandle(1e-7, 1e-7),
+                   outlier_handle=OutlierHandle(1.0, 2.5),
+                   iteration_handle=IterationHandle(40))
+    plain = _BGN[mode][1]
+    calls = plain.calls
+    g = solve(*args(t_gpu), opts)
+    assert plain.calls == calls  # the card ran the kernel, not the plain version
+    c = solve(*args(t_cpu), opts, device="cpu")
+    assert bool(g.success.all()) and bool(g.converged.all())
+    np.testing.assert_allclose(g.pose.cpu().numpy(), c.pose.numpy(), atol=3e-5)
+    assert (g.num_iterations.cpu() - c.num_iterations).abs().max() <= 1
+    assert (g.mask_inlier.cpu() == c.mask_inlier).float().mean() > 0.99
